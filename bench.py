@@ -10,7 +10,7 @@ preset by -3.4% (LDP) / -8.9% (RA gop8) BD-rate, and its slow preset by
 (fast RA), with slow-RA the one remaining natural-content gap (+0.9%,
 entirely the qp26 first-generation-bias point — see ROADMAP "Round-5
 state" #3); synthetic rows -1.9 / -2.1 / +2.8%. Reproduce with
-`python -m turingcodec_tpu.tools.bdrate`.
+`python -m turingcodec.tools.bdrate`.
 
 Speed, stated honestly (both numbers are this bench's metric):
   - driver artifacts of record: BENCH_r04.json 1.492 fps
@@ -96,9 +96,9 @@ def measure_reference_anchor(ups) -> float:
 def main():
     import numpy as np
 
-    from turingcodec_tpu.decode.decoder import Decoder
-    from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
-    from turingcodec_tpu.encode.encoder import read_yuv_frame  # noqa: F401
+    from turingcodec.decode.decoder import Decoder
+    from turingcodec.encode.encoder import EncoderConfig, Encoder
+    from turingcodec.encode.encoder import read_yuv_frame  # noqa: F401
 
     # 1) decode the bundled stream (md5 oracle = decoder correctness)
     data = open(CAMINANDES, "rb").read()

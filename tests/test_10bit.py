@@ -1,8 +1,8 @@
 """Main10 (10-bit) encode/decode round trip."""
 import numpy as np
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import Encoder, EncoderConfig
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import Encoder, EncoderConfig
 
 
 def test_10bit_roundtrip():

@@ -18,8 +18,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import EncoderConfig, Encoder
 
 REF_BIN = "/tmp/turing-dbg/turing/turing"
 
@@ -77,7 +77,7 @@ def test_percu_aq_roundtrip_and_twin_parity(frames):
     n = sum(1 for _ in dec.decode_stream(bs))
     assert n == len(frames) and dec.hash_failures == 0
     # pure-Python twin byte-identical
-    bs_py, _ = _encode(frames, 2, {"TURING_TPU_NO_NATIVE": "1"})
+    bs_py, _ = _encode(frames, 2, {"TURING_NO_NATIVE": "1"})
     assert bs_py == bs
     # depth 0 (per-CTB) still its own distinct stream
     bs0, _ = _encode(frames, 0)

@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from turingcodec_tpu.bitstream.reader import (
+from turingcodec.bitstream.reader import (
     BitReader,
     insert_emulation_prevention,
     iter_nal_units,
     remove_emulation_prevention,
 )
-from turingcodec_tpu.bitstream.writer import BitWriter
+from turingcodec.bitstream.writer import BitWriter
 
 
 def test_ep3_roundtrip():

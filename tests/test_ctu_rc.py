@@ -8,8 +8,8 @@ import hashlib
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import EncoderConfig, Encoder
 
 CAMINANDES = "/root/reference/test/excerpt_(CC)_caminandes.com_640x360.hevc"
 

@@ -9,7 +9,7 @@ import hashlib
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
+from turingcodec.decode.decoder import Decoder
 
 GOLDEN_FULL_MD5 = "05c8e88dd7a694829f34ad9486a0dd8e"
 # per-frame first-GOP md5s (frames 0..8 in output order), derived from the

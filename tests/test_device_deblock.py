@@ -8,10 +8,10 @@ multi-slice encode (slice-boundary gating).
 import numpy as np
 import pytest
 
-import turingcodec_tpu.decode.picture_recon as picture_recon
-from turingcodec_tpu.decode.deblock_vec import _deblock_dir_vec
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.ops.deblock import deblock_picture_device
+import turingcodec.decode.picture_recon as picture_recon
+from turingcodec.decode.deblock_vec import _deblock_dir_vec
+from turingcodec.decode.decoder import Decoder
+from turingcodec.ops.deblock import deblock_picture_device
 
 
 def _numpy_deblock(plan, geom, ry, rcb, rcr):

@@ -1,4 +1,4 @@
-"""Device encoder analysis (TURING_TPU_DEVICE_ENC): the jitted pre-ME
+"""Device encoder analysis (TURING_DEVICE_ENC): the jitted pre-ME
 seed fields must equal the host twins exactly, and a full encode with the
 device stage on must produce a byte-identical bitstream."""
 import os
@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+from turingcodec.encode.encoder import EncoderConfig, Encoder
 
 
 def _frames(n, w, h, seed=11):
@@ -21,8 +21,8 @@ def _frames(n, w, h, seed=11):
 
 
 def test_seed_field_matches_host_oracle():
-    from turingcodec_tpu.encode.device_analysis import seed_field_device
-    from turingcodec_tpu.encode.inter_search import InterPictureEncoder
+    from turingcodec.encode.device_analysis import seed_field_device
+    from turingcodec.encode.inter_search import InterPictureEncoder
     rng = np.random.RandomState(3)
     h, w = 96, 144   # non-multiples of 64 exercise the clamped decimation
     orig = rng.randint(0, 256, (h, w)).astype(np.int16)
@@ -42,8 +42,8 @@ def test_seed_field_matches_host_oracle():
 
 
 def test_dense_field_matches_host_oracle():
-    from turingcodec_tpu.encode.device_analysis import analysis_device
-    from turingcodec_tpu.encode.inter_search import InterPictureEncoder
+    from turingcodec.encode.device_analysis import analysis_device
+    from turingcodec.encode.inter_search import InterPictureEncoder
     rng = np.random.RandomState(5)
     h, w = 112, 176   # non-multiples of 64 exercise the padding
     orig = rng.randint(0, 256, (h, w)).astype(np.int16)
@@ -65,7 +65,7 @@ def test_dense_field_matches_host_oracle():
     assert np.array_equal(ds_d, ds_h)
 
     # the native standalone analysis must agree too
-    from turingcodec_tpu import native
+    from turingcodec import native
     res = native.dense_analysis(orig, ref, 8)
     if res is not None:
         sm_n, dm_n, ds_n, wb_n, hb_n = res[:5]
@@ -77,7 +77,7 @@ def test_dense_field_matches_host_oracle():
         # the full-pel search serves aligned probes from)
         surf_n = res[5]
         if surf_n is not None:
-            from turingcodec_tpu.encode.device_analysis import (
+            from turingcodec.encode.device_analysis import (
                 analysis_device)
             out = analysis_device(orig, ref, want_surf=True)
             assert np.array_equal(out[5], surf_n)
@@ -109,15 +109,15 @@ def _encode(frames, w, h, env):
 def test_device_enc_bitstream_identical():
     frames = _frames(5, 128, 96)
     ref = _encode(frames, 128, 96, {})
-    dev = _encode(frames, 128, 96, {"TURING_TPU_DEVICE_ENC": "1"})
+    dev = _encode(frames, 128, 96, {"TURING_DEVICE_ENC": "1"})
     assert dev == ref
 
 
 def test_device_enc_bitstream_identical_python_twin():
     frames = _frames(4, 96, 64)
-    ref = _encode(frames, 96, 64, {"TURING_TPU_NO_NATIVE": "1"})
-    dev = _encode(frames, 96, 64, {"TURING_TPU_NO_NATIVE": "1",
-                                   "TURING_TPU_DEVICE_ENC": "1"})
+    ref = _encode(frames, 96, 64, {"TURING_NO_NATIVE": "1"})
+    dev = _encode(frames, 96, 64, {"TURING_NO_NATIVE": "1",
+                                   "TURING_DEVICE_ENC": "1"})
     assert dev == ref
 
 
@@ -125,9 +125,9 @@ def test_subpel_planes_match_mc_oracle():
     """The XLA subpel-plane twin must reproduce mc_interp semantics
     (per-sample coordinate clamping, >>shift1 / >>6 integer arithmetic)
     for every fractional position, including the padded border."""
-    from turingcodec_tpu.encode.device_analysis import (SP_P,
+    from turingcodec.encode.device_analysis import (SP_P,
                                                         subpel_planes_device)
-    from turingcodec_tpu.hevc.tables import LUMA_FILTER
+    from turingcodec.hevc.tables import LUMA_FILTER
     rng = np.random.RandomState(7)
     h, w = 22, 37
     for bd in (8, 10):
@@ -169,9 +169,9 @@ def test_subpel_planes_match_mc_oracle():
 
 
 def _mk_ctx(w, h):
-    from turingcodec_tpu.decode.plan import PicturePlan
-    from turingcodec_tpu.decode.reconstruct import ReferenceSampleBuilder
-    from turingcodec_tpu.hevc.geometry import PictureGeometry
+    from turingcodec.decode.plan import PicturePlan
+    from turingcodec.decode.reconstruct import ReferenceSampleBuilder
+    from turingcodec.hevc.geometry import PictureGeometry
     cfg = EncoderConfig(width=w, height=h, qp=32, rd_candidates=2)
     enc = Encoder(cfg)
     plan = PicturePlan(enc.sps, enc.pps)
@@ -184,8 +184,8 @@ def test_rank_satd_tables_match_inloop_oracle():
     """The batched source-referenced rank-SATD tables must equal the
     in-loop ranking's integers (refs.build + _mode_satds) at every
     sampled aligned position and size."""
-    from turingcodec_tpu.encode.device_analysis import rank_satd_tables_host
-    from turingcodec_tpu.encode.intra_search import IntraPictureEncoder
+    from turingcodec.encode.device_analysis import rank_satd_tables_host
+    from turingcodec.encode.intra_search import IntraPictureEncoder
     rng = np.random.RandomState(9)
     w, h = 192, 128
     plane = rng.randint(0, 256, (h, w)).astype(np.int16)
@@ -217,7 +217,7 @@ def test_rank_satd_tables_match_inloop_oracle():
 
 def test_rank_satd_tables_device_matches_host():
     """XLA rank-SATD tables must be integer-exact vs the numpy twin."""
-    from turingcodec_tpu.encode.device_analysis import (
+    from turingcodec.encode.device_analysis import (
         rank_satd_tables_device, rank_satd_tables_host)
     rng = np.random.RandomState(5)
     w, h = 128, 96

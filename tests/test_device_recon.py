@@ -8,7 +8,7 @@ import pytest
 
 
 def _decode_md5(data, env=None):
-    from turingcodec_tpu.decode.decoder import decode_to_yuv
+    from turingcodec.decode.decoder import decode_to_yuv
     saved = {}
     env = env or {}
     for k, v in env.items():
@@ -30,14 +30,14 @@ def test_device_inter_recon_matches_host(stream):
     path = os.path.join(os.path.dirname(__file__), "streams", stream)
     data = open(path, "rb").read()
     ref = _decode_md5(data)
-    dev = _decode_md5(data, {"TURING_TPU_DEVICE_RECON": "1"})
+    dev = _decode_md5(data, {"TURING_DEVICE_RECON": "1"})
     assert dev == ref
 
 
 def test_mc_block_grid_matches_scalar():
     """ops/inter.mc_block_grid vs the scalar interp oracle on random MVs."""
-    from turingcodec_tpu.decode.inter_pred import interp_chroma, interp_luma
-    from turingcodec_tpu.ops.inter import mc_block_grid
+    from turingcodec.decode.inter_pred import interp_chroma, interp_luma
+    from turingcodec.ops.inter import mc_block_grid
     import jax.numpy as jnp
     rng = np.random.default_rng(7)
     h, w = 64, 96
@@ -78,5 +78,5 @@ def test_device_pipeline_matches_host(stream):
     path = os.path.join(os.path.dirname(__file__), "streams", stream)
     data = open(path, "rb").read()
     ref = _decode_md5(data)
-    dev = _decode_md5(data, {"TURING_TPU_DEVICE_PIPELINE": "1"})
+    dev = _decode_md5(data, {"TURING_DEVICE_PIPELINE": "1"})
     assert dev == ref

@@ -10,9 +10,9 @@ import pathlib
 import numpy as np
 import pytest
 
-import turingcodec_tpu.decode.picture_recon as picture_recon
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.ops.sao import sao_picture_device
+import turingcodec.decode.picture_recon as picture_recon
+from turingcodec.decode.decoder import Decoder
+from turingcodec.ops.sao import sao_picture_device
 
 _STREAMS = pathlib.Path(__file__).parent / "streams"
 
@@ -49,7 +49,7 @@ def test_device_sao_gop8_stream():
 
 
 def test_device_sao_encoder_roundtrip():
-    from turingcodec_tpu.encode.encoder import Encoder, EncoderConfig
+    from turingcodec.encode.encoder import Encoder, EncoderConfig
     rng = np.random.default_rng(3)
     w, h = 192, 128
     cfg = EncoderConfig(width=w, height=h, qp=34, rd_candidates=1,

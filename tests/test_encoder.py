@@ -4,8 +4,8 @@ and the writer must be the exact inverse of the parser."""
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import Encoder, EncoderConfig
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import Encoder, EncoderConfig
 
 
 def _synthetic_frame(w, h, seed):
@@ -98,14 +98,14 @@ def test_intra_quality():
 
 def test_writer_parser_inverse():
     """parse(write(plan)) reproduces the plan's decision tensors."""
-    from turingcodec_tpu.bitstream.reader import BitReader, iter_nal_units
-    from turingcodec_tpu.hevc import types as T
-    from turingcodec_tpu.hevc.header_syntax import (
+    from turingcodec.bitstream.reader import BitReader, iter_nal_units
+    from turingcodec.hevc import types as T
+    from turingcodec.hevc.header_syntax import (
         parse_pps, parse_slice_segment_header, parse_sps, parse_vps)
-    from turingcodec_tpu.hevc.params import ParamSets
-    from turingcodec_tpu.hevc.geometry import PictureGeometry
-    from turingcodec_tpu.decode.plan import PicturePlan
-    from turingcodec_tpu.decode.slice_data import parse_slice_segment_data
+    from turingcodec.hevc.params import ParamSets
+    from turingcodec.hevc.geometry import PictureGeometry
+    from turingcodec.decode.plan import PicturePlan
+    from turingcodec.decode.slice_data import parse_slice_segment_data
 
     w, h = 64, 64
     cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=2)
@@ -190,7 +190,7 @@ def test_prefix_sei_and_vui():
     frames = list(dec.decode_stream(stream))
     assert len(frames) == 2 and not dec.violations
     types = [t for t, _ in dec.sei_log]
-    from turingcodec_tpu.hevc import sei as S
+    from turingcodec.hevc import sei as S
     assert types.count(S.SEI_PIC_TIMING) == 2
     assert S.SEI_ACTIVE_PARAMETER_SETS in types
     assert S.SEI_USER_DATA_UNREGISTERED in types
@@ -277,7 +277,7 @@ def test_smp_inter_partitions_roundtrip():
         nal, recon = enc.encode_frame(f)
         stream += nal
         recons.append(recon)
-    import turingcodec_tpu.decode.picture_recon as prmod
+    import turingcodec.decode.picture_recon as prmod
     counts = {}
     orig_run = prmod.PictureReconstructor.run
     def patched(self):
@@ -324,7 +324,7 @@ def test_amp_partitions_roundtrip():
         nal, recon = enc.encode_frame(f)
         stream += nal
         recons.append(recon)
-    import turingcodec_tpu.decode.picture_recon as prmod
+    import turingcodec.decode.picture_recon as prmod
     counts = {}
     orig_run = prmod.PictureReconstructor.run
     def patched(self):
@@ -412,7 +412,7 @@ def test_tskip_roundtrip():
             np.testing.assert_array_equal(a, b)
     # the feature must actually fire on this content: hook the picture
     # encoder and check the plan's TS map
-    import turingcodec_tpu.encode.intra_search as IS
+    import turingcodec.encode.intra_search as IS
     captured = []
     orig_ep = IS.IntraPictureEncoder.encode_picture
 
@@ -449,9 +449,9 @@ def test_hrd_timing_sei():
     dec = Decoder()
     frames = list(dec.decode_stream(stream))
     assert len(frames) == n and not dec.violations
-    from turingcodec_tpu.bitstream.reader import (remove_emulation_prevention,
+    from turingcodec.bitstream.reader import (remove_emulation_prevention,
                                                   split_nal_units)
-    from turingcodec_tpu.hevc import sei as S
+    from turingcodec.hevc import sei as S
     bps, pts = [], []
     for (s, e) in split_nal_units(stream):
         nal = stream[s:e]
@@ -540,7 +540,7 @@ def test_inter_rqt_roundtrip():
 def test_rate_control_intra_complexity():
     """EstimateIntraComplexity feeds the IDR allocation: complex content
     gets a larger intra target than flat content at the same bitrate."""
-    from turingcodec_tpu.encode.rate_control import (SequenceRateController,
+    from turingcodec.encode.rate_control import (SequenceRateController,
                                                      intra_complexity)
     rng = np.random.default_rng(5)
     flat = np.full((64, 64), 128, np.int16)

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import Encoder, EncoderConfig
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import Encoder, EncoderConfig
 from tests.test_encoder import _synthetic_frame
 
 
@@ -50,8 +50,8 @@ def test_shot_change_places_idr():
     # the reference-parity detector (SCDetection.h) needs a dhist window
     # of 10 transitions around the cut — static scenes trip its hard
     # threshold (tests/test_gop_scd.py covers the lookahead placement)
-    from turingcodec_tpu.hevc import types as T
-    from turingcodec_tpu.bitstream.reader import iter_nal_units
+    from turingcodec.hevc import types as T
+    from turingcodec.bitstream.reader import iter_nal_units
 
     cfg = EncoderConfig(width=64, height=64, qp=35, rd_candidates=1,
                         gop_m=1, shot_change=True, search_range=8,
@@ -81,7 +81,7 @@ def test_field_coding_roundtrip():
     """Field coding: each frame becomes two half-height field pictures with
     pic_timing pic_struct 1/2, VUI field_seq_flag, interlaced PTL flags
     (the reference's --field-coding, encode.cpp:379-453)."""
-    from turingcodec_tpu.hevc import sei as S
+    from turingcodec.hevc import sei as S
     w, h = 64, 64
     cfg = EncoderConfig(width=w, height=h, qp=35, rd_candidates=1, gop_m=1,
                         search_range=8, field_coding=True)
@@ -151,7 +151,7 @@ def test_frame_parallel_bit_identical():
     import os
     import hashlib
     import numpy as np
-    from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+    from turingcodec.encode.encoder import EncoderConfig, Encoder
 
     rng = np.random.default_rng(3)
     h, w = 96, 160
@@ -163,8 +163,8 @@ def test_frame_parallel_bit_identical():
                        np.full((h // 2, w // 2), 120, np.int16)])
 
     def run(ft):
-        old = os.environ.get("TURING_TPU_FRAME_THREADS")
-        os.environ["TURING_TPU_FRAME_THREADS"] = ft
+        old = os.environ.get("TURING_FRAME_THREADS")
+        os.environ["TURING_FRAME_THREADS"] = ft
         try:
             cfg = EncoderConfig(width=w, height=h, qp=32, gop_m=8,
                                 rd_candidates=2)
@@ -179,9 +179,9 @@ def test_frame_parallel_bit_identical():
             return hashlib.md5(b"".join(out)).hexdigest()
         finally:
             if old is None:
-                del os.environ["TURING_TPU_FRAME_THREADS"]
+                del os.environ["TURING_FRAME_THREADS"]
             else:
-                os.environ["TURING_TPU_FRAME_THREADS"] = old
+                os.environ["TURING_FRAME_THREADS"] = old
 
     assert run("1") == run("2") == run("3")
 
@@ -191,8 +191,8 @@ def test_noise_adaptive_rdoq_persistence():
     after 2+ consecutive unpredictable inter pictures (white noise);
     a single unpredictable picture (a scene cut) keeps RDOQ."""
     import numpy as np
-    from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
-    import turingcodec_tpu.encode.inter_search as IS
+    from turingcodec.encode.encoder import EncoderConfig, Encoder
+    import turingcodec.encode.inter_search as IS
 
     rng = np.random.RandomState(7)
     h, w = 96, 160

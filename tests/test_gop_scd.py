@@ -5,8 +5,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import EncoderConfig, Encoder
 
 REF_BIN = "/tmp/turing-dbg/turing/turing"
 

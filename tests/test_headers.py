@@ -1,10 +1,10 @@
 """Header parse + re-serialize oracle (SURVEY.md §7 stage 1)."""
 import pytest
 
-from turingcodec_tpu.bitstream.reader import BitReader, iter_nal_units
-from turingcodec_tpu.bitstream.writer import BitWriter
-from turingcodec_tpu.hevc import types as T
-from turingcodec_tpu.hevc.header_syntax import (
+from turingcodec.bitstream.reader import BitReader, iter_nal_units
+from turingcodec.bitstream.writer import BitWriter
+from turingcodec.hevc import types as T
+from turingcodec.hevc.header_syntax import (
     parse_pps,
     parse_slice_segment_header,
     parse_sps,
@@ -13,7 +13,7 @@ from turingcodec_tpu.hevc.header_syntax import (
     write_slice_segment_header,
     write_sps,
 )
-from turingcodec_tpu.hevc.params import ParamSets
+from turingcodec.hevc.params import ParamSets
 
 
 @pytest.fixture(scope="module")
@@ -95,14 +95,14 @@ def test_sps_pps_reserialize(parsed):
 def test_level_derivation():
     """general_level_idc from the A.4 levels table (Encoder.cpp:590-606):
     smallest Main-tier level fitting picture size and luma sample rate."""
-    from turingcodec_tpu.hevc.tables import derive_level
+    from turingcodec.hevc.tables import derive_level
     assert derive_level(352 * 288, 30.0)[0] == 60       # CIF30 -> 2.0
     assert derive_level(640 * 360, 24.0)[0] == 63       # 360p24 -> 2.1
     assert derive_level(1920 * 1080, 24.0)[0] == 120    # 1080p24 -> 4.0
     assert derive_level(1920 * 1080, 60.0)[0] == 123    # 1080p60 -> 4.1
     assert derive_level(3840 * 2160, 60.0)[0] == 153    # 2160p60 -> 5.1
     # the encoder signals it in the SPS PTL
-    from turingcodec_tpu.encode.encoder import Encoder, EncoderConfig
+    from turingcodec.encode.encoder import Encoder, EncoderConfig
     enc = Encoder(EncoderConfig(width=640, height=360, qp=30,
                                 frame_rate=24.0))
     assert enc.sps.ptl.general_level_idc == 63

@@ -8,15 +8,15 @@ import sys
 
 import pytest
 
-from turingcodec_tpu.decode.violations import Violation
+from turingcodec.decode.violations import Violation
 
 CAMINANDES = "/root/reference/test/excerpt_(CC)_caminandes.com_640x360.hevc"
 
 _WORKER = r'''
 import sys
 sys.path.insert(0, "/root/repo")
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.decode.violations import Violation
+from turingcodec.decode.decoder import Decoder
+from turingcodec.decode.violations import Violation
 data = bytearray(open("%s", "rb").read())
 start = int(sys.argv[1])
 positions = %s
@@ -80,7 +80,7 @@ def test_violation_is_clause_tagged():
     # violations are either recorded (header NALs: record-and-skip,
     # Violation.h robustness semantics) or raised (slice data); both must
     # carry the spec clause tag
-    from turingcodec_tpu.decode.decoder import Decoder
+    from turingcodec.decode.decoder import Decoder
     data = bytearray(open(CAMINANDES, "rb").read())
     seen = 0
     for pos in range(10, 80):

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from turingcodec_tpu import native
+from turingcodec import native
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native cabac core unavailable")
@@ -28,9 +28,9 @@ def _random_block(log2, density):
 def test_residual_bits_matches_python(log2, scan, c_idx):
     if log2 > 3 and scan > 0:
         pytest.skip("h/v scans only exist for 4x4/8x8")
-    from turingcodec_tpu.cabac.engine import ContextPool
-    from turingcodec_tpu.cabac.rate import RateEstimator
-    from turingcodec_tpu.encode.ctu_write import residual_core
+    from turingcodec.cabac.engine import ContextPool
+    from turingcodec.cabac.rate import RateEstimator
+    from turingcodec.encode.ctu_write import residual_core
 
     for density in (0.05, 0.3, 0.9):
         blk = _random_block(log2, density)
@@ -52,7 +52,7 @@ def test_residual_decode_matches_python():
     if not os.path.exists(path):
         pytest.skip("reference stream unavailable")
     data = open(path, "rb").read()
-    from turingcodec_tpu.decode.decoder import Decoder
+    from turingcodec.decode.decoder import Decoder
 
     def run(limit=3):
         dec = Decoder()
@@ -67,12 +67,12 @@ def test_residual_decode_matches_python():
         return md5.hexdigest()
 
     h_native = run()
-    os.environ["TURING_TPU_NO_NATIVE"] = "1"
+    os.environ["TURING_NO_NATIVE"] = "1"
     native._TRIED, native._LIB = False, None
     try:
         h_python = run()
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE"]
+        del os.environ["TURING_NO_NATIVE"]
         native._TRIED, native._LIB = False, None
     assert h_native == h_python
 
@@ -106,7 +106,7 @@ def test_satd_simd_matches_scalar():
 def test_fwd_transform_folded_matches_oracle(n, bd):
     """Even/odd-folded native forward DCT (and DST4) == numpy oracle."""
     import ctypes
-    from turingcodec_tpu.ops.transform import forward_transform_np
+    from turingcodec.ops.transform import forward_transform_np
     lib = native.get_lib()
     lib.tc_test_fwd_transform.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -131,7 +131,7 @@ def test_wpp_row_threads_bit_identical():
     across thread counts (signature.cpp:228-237)."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -151,17 +151,17 @@ def test_wpp_row_threads_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=1,
                         search_range=32, sdh=False)
     results = {}
-    old = os.environ.get("TURING_TPU_ENC_THREADS")
+    old = os.environ.get("TURING_ENC_THREADS")
     try:
         for t in (1, 3):
-            os.environ["TURING_TPU_ENC_THREADS"] = str(t)
+            os.environ["TURING_ENC_THREADS"] = str(t)
             bs, md5 = encode_yuv_stream(raw, cfg, n_frames=n_frames)
             results[t] = (hashlib.md5(bs).hexdigest(), md5)
     finally:
         if old is None:
-            os.environ.pop("TURING_TPU_ENC_THREADS", None)
+            os.environ.pop("TURING_ENC_THREADS", None)
         else:
-            os.environ["TURING_TPU_ENC_THREADS"] = old
+            os.environ["TURING_ENC_THREADS"] = old
     assert results[1] == results[3]
 
 
@@ -171,7 +171,7 @@ def test_native_python_encoder_bit_identical():
     bitstreams on content with large motion (forces the far-winner path)."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -193,11 +193,11 @@ def test_native_python_encoder_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=1,
                         search_range=32, sdh=False, met=True)
     bs_nat, md5_nat = encode_yuv_stream(raw, cfg, n_frames=n_frames)
-    os.environ["TURING_TPU_NO_NATIVE_ENC"] = "1"
+    os.environ["TURING_NO_NATIVE_ENC"] = "1"
     try:
         bs_py, md5_py = encode_yuv_stream(raw, cfg, n_frames=n_frames)
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE_ENC"]
+        del os.environ["TURING_NO_NATIVE_ENC"]
     assert md5_nat == md5_py
     assert hashlib.md5(bs_nat).hexdigest() == hashlib.md5(bs_py).hexdigest()
 
@@ -208,7 +208,7 @@ def test_native_python_encoder_rqt_bit_identical():
     actually fires on high-detail content."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -229,11 +229,11 @@ def test_native_python_encoder_rqt_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=27, rd_candidates=3,
                         search_range=16)
     bs_nat, md5_nat = encode_yuv_stream(raw, cfg, n_frames=n_frames)
-    os.environ["TURING_TPU_NO_NATIVE_ENC"] = "1"
+    os.environ["TURING_NO_NATIVE_ENC"] = "1"
     try:
         bs_py, md5_py = encode_yuv_stream(raw, cfg, n_frames=n_frames)
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE_ENC"]
+        del os.environ["TURING_NO_NATIVE_ENC"]
     assert md5_nat == md5_py
     assert hashlib.md5(bs_nat).hexdigest() == hashlib.md5(bs_py).hexdigest()
 
@@ -243,7 +243,7 @@ def test_native_python_encoder_aps_bit_identical():
     Python searchers stay byte-identical."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -264,11 +264,11 @@ def test_native_python_encoder_aps_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=2,
                         search_range=16)
     bs_nat, md5_nat = encode_yuv_stream(raw, cfg, n_frames=n_frames)
-    os.environ["TURING_TPU_NO_NATIVE_ENC"] = "1"
+    os.environ["TURING_NO_NATIVE_ENC"] = "1"
     try:
         bs_py, md5_py = encode_yuv_stream(raw, cfg, n_frames=n_frames)
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE_ENC"]
+        del os.environ["TURING_NO_NATIVE_ENC"]
     assert md5_nat == md5_py
     assert hashlib.md5(bs_nat).hexdigest() == hashlib.md5(bs_py).hexdigest()
 
@@ -282,7 +282,7 @@ def test_native_python_encoder_bpic_seed_install_bit_identical():
     twin) rather than dropping list-1's lowres ME candidate."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -304,11 +304,11 @@ def test_native_python_encoder_bpic_seed_install_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=30, rd_candidates=2,
                         search_range=32, met=True, rdoq=True, gop_m=4)
     bs_nat, md5_nat = encode_yuv_stream(raw, cfg, n_frames=n_frames)
-    os.environ["TURING_TPU_NO_NATIVE_ENC"] = "1"
+    os.environ["TURING_NO_NATIVE_ENC"] = "1"
     try:
         bs_py, md5_py = encode_yuv_stream(raw, cfg, n_frames=n_frames)
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE_ENC"]
+        del os.environ["TURING_NO_NATIVE_ENC"]
     assert md5_nat == md5_py
     assert hashlib.md5(bs_nat).hexdigest() == hashlib.md5(bs_py).hexdigest()
 
@@ -320,7 +320,7 @@ def test_native_python_encoder_intra64_bit_identical():
     trial is disabled)."""
     import hashlib
 
-    from turingcodec_tpu.encode.encoder import (EncoderConfig,
+    from turingcodec.encode.encoder import (EncoderConfig,
                                                 encode_yuv_stream)
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
@@ -337,11 +337,11 @@ def test_native_python_encoder_intra64_bit_identical():
     cfg = EncoderConfig(width=w, height=h, qp=37, rd_candidates=3,
                         search_range=16, gop_m=4, rdoq=True, sdh=True)
     bs_nat, md5_nat = encode_yuv_stream(raw, cfg, n_frames=n_frames)
-    os.environ["TURING_TPU_NO_NATIVE_ENC"] = "1"
+    os.environ["TURING_NO_NATIVE_ENC"] = "1"
     try:
         bs_py, md5_py = encode_yuv_stream(raw, cfg, n_frames=n_frames)
     finally:
-        del os.environ["TURING_TPU_NO_NATIVE_ENC"]
+        del os.environ["TURING_NO_NATIVE_ENC"]
     assert md5_nat == md5_py
     assert hashlib.md5(bs_nat).hexdigest() == hashlib.md5(bs_py).hexdigest()
     os.environ["TC_NO_I64"] = "1"

@@ -3,13 +3,13 @@ bit-exactly (the analogue of `turing havoc` self-tests, havoc/havoc_test.h)."""
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.reconstruct import (
+from turingcodec.decode.reconstruct import (
     dequant_block,
     inverse_transform,
 )
-from turingcodec_tpu.ops.metrics import sad_batch, satd_batch, satd_np, ssd_batch
-from turingcodec_tpu.ops.quant import dequant_batch, dequant_np
-from turingcodec_tpu.ops.transform import (
+from turingcodec.ops.metrics import sad_batch, satd_batch, satd_np, ssd_batch
+from turingcodec.ops.quant import dequant_batch, dequant_np
+from turingcodec.ops.transform import (
     forward_transform_batch,
     forward_transform_np,
     inverse_transform_batch,

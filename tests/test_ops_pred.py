@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from turingcodec_tpu.ops.intra import (
+from turingcodec.ops.intra import (
     intra_predict_all_modes,
     intra_predict_all_modes_np,
 )
-from turingcodec_tpu.ops.inter import (
+from turingcodec.ops.inter import (
     interp_luma_all_phases,
     interp_luma_all_phases_np,
 )

@@ -18,8 +18,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from turingcodec_tpu.decode.decoder import Decoder
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+from turingcodec.decode.decoder import Decoder
+from turingcodec.encode.encoder import EncoderConfig, Encoder
 
 REF_BIN = "/tmp/turing-dbg/turing/turing"
 
@@ -36,7 +36,7 @@ def frames(caminandes_bytes):
 
 
 def _encode(frames, ft, gop_m=1, **kw):
-    os.environ["TURING_TPU_FRAME_THREADS"] = str(ft)
+    os.environ["TURING_FRAME_THREADS"] = str(ft)
     try:
         base = dict(width=640, height=360, qp=32, rd_candidates=1,
                     search_range=32, gop_m=gop_m, sao=False,
@@ -52,7 +52,7 @@ def _encode(frames, ft, gop_m=1, **kw):
             out.append(nal)
         return b"".join(out)
     finally:
-        del os.environ["TURING_TPU_FRAME_THREADS"]
+        del os.environ["TURING_FRAME_THREADS"]
 
 
 @pytest.fixture(scope="module")
@@ -167,7 +167,7 @@ def test_deblock_band_sequence_equals_whole(frames):
     """DeblockNative banded pass == whole-picture pass, sample-exact, on
     a real encoded picture's plan (the overlap follower's publisher
     contract)."""
-    from turingcodec_tpu import native
+    from turingcodec import native
     if native.get_lib() is None:
         pytest.skip("native core unavailable")
     cfg = EncoderConfig(width=640, height=360, qp=32, rd_candidates=1,

@@ -7,7 +7,7 @@ rng = np.random.default_rng(7)
 def test_dense_me_argmin_matches_scan_formulation():
     """The production dense-ME Pallas kernel must equal the host/XLA
     selection rule: argmin (sad<<2)+|ox|+|oy| in (oy, ox) scan order."""
-    from turingcodec_tpu.ops.pallas_kernels import dense_me_argmin
+    from turingcodec.ops.pallas_kernels import dense_me_argmin
     b = 7
     cur = rng.integers(0, 256, (b, 16, 16)).astype(np.int32)
     pat = rng.integers(0, 256, (b, 32, 32)).astype(np.int32)

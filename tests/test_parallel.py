@@ -8,7 +8,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 
 def test_mesh_analysis_step_8dev():
-    from turingcodec_tpu.parallel.mesh import make_mesh, sharded_analysis
+    from turingcodec.parallel.mesh import make_mesh, sharded_analysis
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
@@ -44,5 +44,5 @@ def test_gop_scaling_demo(caminandes_bytes, tmp_path):
     equal the unsharded per-picture op (exit 0 == bit-exact)."""
     p = tmp_path / "c.hevc"
     p.write_bytes(caminandes_bytes)
-    from turingcodec_tpu.tools import scaling
+    from turingcodec.tools import scaling
     assert scaling.main(["--frames", "4", "--mesh", "4x2", str(p)]) == 0

@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
-from turingcodec_tpu.encode.rate_check import writer_walk_frac
+from turingcodec.encode.encoder import EncoderConfig, Encoder
+from turingcodec.encode.rate_check import writer_walk_frac
 
 
 def _frames(n, w, h, seed=7):
@@ -79,9 +79,9 @@ def test_rate_invariant_odd_gops(gop_m):
 
 def test_rate_invariant_python_oracle():
     # pure-Python twin obeys the same invariant
-    os.environ["TURING_TPU_NO_NATIVE"] = "1"
+    os.environ["TURING_NO_NATIVE"] = "1"
     try:
         cfg = EncoderConfig(width=64, height=64, qp=34, gop_m=1, sao=False)
         _check(cfg, _frames(3, 64, 64))
     finally:
-        os.environ.pop("TURING_TPU_NO_NATIVE", None)
+        os.environ.pop("TURING_NO_NATIVE", None)

@@ -3,8 +3,8 @@ reference parses has a typed parser; unknown/extension ones are typed-raw
 and skip-safe."""
 import numpy as np
 
-from turingcodec_tpu.bitstream.writer import BitWriter
-from turingcodec_tpu.hevc import sei
+from turingcodec.bitstream.writer import BitWriter
+from turingcodec.hevc import sei
 
 
 def _pl(fn):

@@ -4,5 +4,5 @@ default row byte-for-byte."""
 
 
 def test_signature_matrix():
-    from turingcodec_tpu.tools.signature import run
+    from turingcodec.tools.signature import run
     assert run() == 0

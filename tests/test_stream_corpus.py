@@ -14,7 +14,7 @@ NAMES = [k for k in GOLDEN if not k.startswith("_")]
 
 @pytest.mark.parametrize("name", NAMES)
 def test_corpus_stream(name):
-    from turingcodec_tpu.decode.decoder import Decoder
+    from turingcodec.decode.decoder import Decoder
 
     data = open(os.path.join(STREAMS_DIR, name), "rb").read()
     dec = Decoder()

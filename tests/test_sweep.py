@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from turingcodec_tpu.encode.sweep import intra_all_modes_np, satd_many, sad_many
-from turingcodec_tpu.decode.reconstruct import intra_predict
-from turingcodec_tpu.ops.metrics import satd_np
+from turingcodec.encode.sweep import intra_all_modes_np, satd_many, sad_many
+from turingcodec.decode.reconstruct import intra_predict
+from turingcodec.ops.metrics import satd_np
 
 rng = np.random.default_rng(11)
 

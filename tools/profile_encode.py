@@ -1,9 +1,9 @@
 """Phase-profile the 1080p fast encode (bench.py's workload).
 
-Usage:  TURING_TPU_NATIVE_PROF=1 python tools/profile_encode.py [n_frames]
+Usage:  TURING_NATIVE_PROF=1 python tools/profile_encode.py [n_frames]
 
 Runs the same deterministic 3x-upscaled caminandes workload as bench.py,
-single-threaded for clean attribution (override TURING_TPU_ENC_THREADS),
+single-threaded for clean attribution (override TURING_ENC_THREADS),
 and prints the native enc_core phase counters as seconds/frame.
 
 Phase slots (enc_core.cpp g_enc_ns): nested timers overlap — inter_cu
@@ -15,8 +15,8 @@ import os
 import sys
 import time
 
-os.environ.setdefault("TURING_TPU_NATIVE_PROF", "1")
-os.environ.setdefault("TURING_TPU_ENC_THREADS", "1")
+os.environ.setdefault("TURING_NATIVE_PROF", "1")
+os.environ.setdefault("TURING_ENC_THREADS", "1")
 for _v in ("OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS", "NUMEXPR_NUM_THREADS"):
     os.environ.setdefault(_v, "1")
 
@@ -38,9 +38,9 @@ XPHASES = ["dense_me", "analysis", "subpel_planes", "deblock", "x28",
 
 def main():
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 8
-    from turingcodec_tpu.decode.decoder import Decoder
-    from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
-    from turingcodec_tpu.native import get_lib
+    from turingcodec.decode.decoder import Decoder
+    from turingcodec.encode.encoder import EncoderConfig, Encoder
+    from turingcodec.native import get_lib
 
     data = open("/root/reference/test/"
                 "excerpt_(CC)_caminandes.com_640x360.hevc", "rb").read()
@@ -78,7 +78,7 @@ def main():
     lib.tc_enc_counters(cnt.ctypes.data)
     print(f"total {dt:.2f}s  {len(ups) / dt:.3f} fps "
           f"({dt / len(ups):.3f} s/frame, threads="
-          f"{os.environ['TURING_TPU_ENC_THREADS']})")
+          f"{os.environ['TURING_ENC_THREADS']})")
     rows = sorted(list(zip(PHASES, cnt[:16])) + list(zip(XPHASES, cnt[24:])),
                   key=lambda kv: -kv[1])
     for name, ns in rows:
@@ -89,14 +89,14 @@ def main():
         {k: int(v) for k, v in zip(COUNTS, cnt[16:24]) if v}))
     # device-twin-covered fraction: stages with proven integer-exact XLA
     # twins (tools/device_enc_check.py, byte-identical bitstreams with
-    # TURING_TPU_DEVICE_ENC=1):
+    # TURING_DEVICE_ENC=1):
     #   [15/24/25] lowres pre-ME + dense ME field (+ facade analysis)
     #   [26] subpel plane builds (device_analysis.subpel_planes_device)
     #   [12] rank_modes — the source-referenced 35-mode SATD ranking of
     #        the MET presets (device_analysis.rank_satd_tables_device);
     #        this workload runs rd_candidates=1, so src-rank is active
     #   [27] loop-filter deblock (native tc_deblock; bit-exact device
-    #        twin TURING_TPU_DEVICE_DEBLOCK, tests/test_device_deblock)
+    #        twin TURING_DEVICE_DEBLOCK, tests/test_device_deblock)
     dev = (cnt[12] + cnt[15] + cnt[24] + cnt[25] + cnt[26]
            + cnt[27]) / 1e9
     print(f"  device-twin-covered stages: {dev / len(ups):.4f} s/frame "

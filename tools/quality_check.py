@@ -22,8 +22,8 @@ def psnr(a, b, maxv=255.0):
 
 
 def run(frames, qp, gop_m=1):
-    from turingcodec_tpu.decode.decoder import Decoder
-    from turingcodec_tpu.encode.encoder import EncoderConfig, Encoder
+    from turingcodec.decode.decoder import Decoder
+    from turingcodec.encode.encoder import EncoderConfig, Encoder
     h, w = frames[0][0].shape
     cfg = EncoderConfig(width=w, height=h, qp=qp,
                         rd_candidates=1, search_range=32,
@@ -55,7 +55,7 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 24
     qp = int(sys.argv[2]) if len(sys.argv) > 2 else 30
     up = len(sys.argv) > 3 and sys.argv[3] == "1080"
-    from turingcodec_tpu.decode.decoder import Decoder
+    from turingcodec.decode.decoder import Decoder
     data = open("/root/reference/test/"
                 "excerpt_(CC)_caminandes.com_640x360.hevc", "rb").read()
     dec = Decoder()

@@ -7,7 +7,7 @@ import sys
 
 sys.path.insert(0, "/root/repo")
 
-from turingcodec_tpu.decode.decoder import Decoder
+from turingcodec.decode.decoder import Decoder
 
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 1
 data = open("/root/reference/test/excerpt_(CC)_caminandes.com_640x360.hevc", "rb").read()
