@@ -2,45 +2,22 @@
 {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}.
 
 Headline metric (BASELINE.json): 1080p low-delay encode frames/s at the
-fast preset (RDOQ+SDH on — our fast defaults). Quality at this operating
-point (QUALITY.md, 4-QP BD-rate vs the reference encoder, re-measured
-round 5): on this exact 1080p workload we BEAT the reference's fast
-preset by -3.4% (LDP) / -8.9% (RA gop8) BD-rate, and its slow preset by
--7.4% (RA); on the natural 640x360 clip -0.9% (fast LDP) / -3.3%
-(fast RA), with slow-RA the one remaining natural-content gap (+0.9%,
-entirely the qp26 first-generation-bias point — see ROADMAP "Round-5
-state" #3); synthetic rows -1.9 / -2.1 / +2.8%. Reproduce with
-`python -m turingcodec.tools.bdrate`.
-
-Speed, stated honestly (both numbers are this bench's metric):
-  - driver artifacts of record: BENCH_r04.json 1.492 fps
-    (vs_baseline 1.11 against the RECORDED round-1 anchor); round-4
-    quiet-host band 1.546-1.601 fps over 5 runs.
-  - Round-5 finding: on the round-5 machine a FRESH -O1 build of the
-    reference runs this workload at 2.27 fps (the round-1 machine's
-    build: 1.34) — against that live anchor our 1080p encode is ~0.7x,
-    i.e. per-chip encode speed loses to the reference binary when its
-    build is healthy; our wins are compression (8 of 9 QUALITY.md
-    rows) and decode speed (~12x). vs_baseline below uses the live
-    same-host anchor whenever the binary exists.
+fast preset (RDOQ+SDH on — our fast defaults): QP 30, rd_candidates=1,
+search_range=32, GOP M=1, no SAO, 16 frames. Compression at this
+operating point against the reference encoder is in QUALITY.md
+(reproduce with `python -m turingcodec.tools.bdrate`).
 
 The 1080p input is a deterministic 3x nearest-neighbour upscale of the
-bundled caminandes stream decoded by our own decoder; the decode is
+caminandes stream decoded by our own decoder; the decode is
 md5-asserted against the reference decoder's output first, so this bench
 also re-verifies decoder correctness on every run.
 
-vs_baseline = our fps / reference `turing encode` fps under identical
-conditions (1080p, QP30, --speed fast, --max-gop-m 1, 2 threads). The
-anchor is MEASURED LIVE on the same input when the reference binary is
-present at /tmp/turing-dbg/turing/turing (build recipe:
-.claude/skills/verify/SKILL.md; the Release/xbyak build segfaults under
-this glibc, so its g++ -O1 build is the anchor), else the recorded
-round-1 constant 1.34 fps is used. Caveat discovered round 5: the -O1
-anchor is strongly build/host dependent — the round-1 machine measured
-1.34 fps, the round-5 machine's fresh build of the SAME source measures
-2.27 fps on the SAME workload — so cross-round vs_baseline values are
-only comparable when the anchor source (live vs recorded) matches; the
-JSON uses the live anchor whenever it can.
+vs_baseline = our fps / the reference `turing encode` fps under
+identical conditions (1080p, QP30, --speed fast, --max-gop-m 1, 2
+threads), measured live on the same input when the reference binary is
+present, else a recorded anchor from an earlier host. No speed figure
+in this file is current: the benchmark is being rebuilt around seeded
+content and the GPU (see ROADMAP.md, Queue 1 #1).
 Our encoder uses all host cores (deterministic WPP row threading).
 """
 import hashlib
@@ -95,6 +72,9 @@ def measure_reference_anchor(ups) -> float:
 
 def main():
     import numpy as np
+
+    from turingcodec.utils.device import enable_compile_cache
+    enable_compile_cache()
 
     from turingcodec.decode.decoder import Decoder
     from turingcodec.encode.encoder import EncoderConfig, Encoder

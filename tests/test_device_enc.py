@@ -1,4 +1,4 @@
-"""Device encoder analysis (TURING_DEVICE_ENC): the jitted pre-ME
+"""Device encoder analysis (EncoderConfig.device): the jitted pre-ME
 seed fields must equal the host twins exactly, and a full encode with the
 device stage on must produce a byte-identical bitstream."""
 import os
@@ -84,12 +84,13 @@ def test_dense_field_matches_host_oracle():
             assert np.array_equal(out[1], dm_h)  # argmin tie-break parity
 
 
-def _encode(frames, w, h, env):
+def _encode(frames, w, h, env, device=False):
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
         cfg = EncoderConfig(width=w, height=h, qp=32, gop_m=4, sao=False,
-                            rdoq=True, sdh=True, rd_candidates=2)
+                            rdoq=True, sdh=True, rd_candidates=2,
+                            device=device)
         enc = Encoder(cfg)
         out = [enc.headers()]
         for f in frames:
@@ -109,15 +110,14 @@ def _encode(frames, w, h, env):
 def test_device_enc_bitstream_identical():
     frames = _frames(5, 128, 96)
     ref = _encode(frames, 128, 96, {})
-    dev = _encode(frames, 128, 96, {"TURING_DEVICE_ENC": "1"})
+    dev = _encode(frames, 128, 96, {}, device=True)
     assert dev == ref
 
 
 def test_device_enc_bitstream_identical_python_twin():
     frames = _frames(4, 96, 64)
     ref = _encode(frames, 96, 64, {"TURING_NO_NATIVE": "1"})
-    dev = _encode(frames, 96, 64, {"TURING_NO_NATIVE": "1",
-                                   "TURING_DEVICE_ENC": "1"})
+    dev = _encode(frames, 96, 64, {"TURING_NO_NATIVE": "1"}, device=True)
     assert dev == ref
 
 

@@ -1,4 +1,4 @@
-"""Device (TPU/XLA) inter reconstruction parity: the jitted per-picture MC +
+"""Device (XLA) inter reconstruction parity: the jitted per-picture MC +
 batched residual pipeline must reproduce the host path bit-exactly (decode
 md5 equality on inter streams). Runs on the CPU backend via conftest."""
 import os
@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 
-def _decode_md5(data, env=None):
+def _decode_md5(data, env=None, device=False):
     from turingcodec.decode.decoder import decode_to_yuv
     saved = {}
     env = env or {}
@@ -15,7 +15,7 @@ def _decode_md5(data, env=None):
         saved[k] = os.environ.get(k)
         os.environ[k] = v
     try:
-        return decode_to_yuv(data)[0]
+        return decode_to_yuv(data, device=device)[0]
     finally:
         for k, v in saved.items():
             if v is None:
@@ -78,5 +78,5 @@ def test_device_pipeline_matches_host(stream):
     path = os.path.join(os.path.dirname(__file__), "streams", stream)
     data = open(path, "rb").read()
     ref = _decode_md5(data)
-    dev = _decode_md5(data, {"TURING_DEVICE_PIPELINE": "1"})
+    dev = _decode_md5(data, device=True)
     assert dev == ref

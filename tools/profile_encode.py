@@ -88,8 +88,8 @@ def main():
     print("  counts: " + json.dumps(
         {k: int(v) for k, v in zip(COUNTS, cnt[16:24]) if v}))
     # device-twin-covered fraction: stages with proven integer-exact XLA
-    # twins (tools/device_enc_check.py, byte-identical bitstreams with
-    # TURING_DEVICE_ENC=1):
+    # twins (chip_smoke.py phase 1, byte-identical bitstreams with
+    # EncoderConfig(device=True)):
     #   [15/24/25] lowres pre-ME + dense ME field (+ facade analysis)
     #   [26] subpel plane builds (device_analysis.subpel_planes_device)
     #   [12] rank_modes — the source-referenced 35-mode SATD ranking of

@@ -1,14 +1,15 @@
-"""turingcodec — a TPU-native HEVC (H.265) video encoder/decoder framework.
+"""turingcodec — an HEVC (H.265) video encoder/decoder in JAX and C++.
 
-A from-scratch re-design of the capabilities of the Turing codec
-(reference: /root/reference, bbc/turingcodec) for TPU hardware:
+A from-scratch re-design of the capabilities of the BBC's Turing codec
+(bbc/turingcodec) for a host plus an accelerator:
 
 - Entropy (CABAC) and bitstream layers run on the host (Python/C++),
-  producing/consuming *decision tensors* — the TPU-native analogue of the
+  producing/consuming *decision tensors* — the batched analogue of the
   reference's CodedData decision stream (reference turing/CodedData.h:37).
-- All pixel DSP (transforms, quantization, intra/inter prediction,
-  deblocking, SAO, SAD/SATD/SSD metrics) runs as batched JAX/XLA/Pallas
-  ops over CTU tensors (reference havoc/ kernel library equivalent).
+- The whole-picture pixel work (encoder ME analysis, MC, transforms,
+  quantization, deblocking, SAO, SAD/SATD/SSD metrics) has batched JAX/XLA
+  twins over picture tensors (reference havoc/ kernel library
+  equivalent), integer-exact with the host code.
 - Parallelism is expressed as jax.sharding over device meshes: wavefront
   rows become diagonal batches, concurrent frames become GOP shards
   (reference ThreadPool/TaskEncode* equivalents, SURVEY.md §2.7).

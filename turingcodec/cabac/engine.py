@@ -2,7 +2,7 @@
 
 Host-side sequential engines: CABAC bin coding is inherently serial (each bin
 update feeds the next), so it runs on the host while all pixel work is batched
-on TPU. The context pool is a flat numpy uint8 array (packed 2*pStateIdx+mps)
+on the device. The context pool is a flat numpy uint8 array (packed 2*pStateIdx+mps)
 so a whole pool snapshot/restore (needed for WPP row inheritance and RDO
 estimate-vs-write checks) is a single array copy.
 

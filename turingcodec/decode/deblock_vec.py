@@ -5,7 +5,7 @@ Independence argument: a vertical edge at x writes columns x-3..x+2 and reads
 x-4..x+3; neighbouring vertical edges are >= 8 columns away, so all vertical
 segments are data-independent and can be filtered simultaneously (likewise
 horizontal, which runs on the vertically-filtered picture). This is exactly
-the parallel structure the TPU twin uses.
+the parallel structure the device twin uses.
 """
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ from turingcodec.decode.mvp import InterDeriver
 from turingcodec.decode.picture_recon import PictureReconstructor
 from turingcodec.decode.plan import PicturePlan
 from turingcodec.decode.slice_data import parse_slice_segment_data
+from turingcodec.utils.device import device_stages_on
 
 
 @dataclass
@@ -60,8 +61,13 @@ class Decoder:
     """Streaming HEVC decoder. Feed an Annex-B byte stream; yields frames in
     output order."""
 
-    def __init__(self, reconstructor_cls=PictureReconstructor):
+    def __init__(self, reconstructor_cls=PictureReconstructor,
+                 device: Optional[bool] = None):
         self.ps = ParamSets()
+        # chained device pipeline on/off (None: on when JAX's backend is
+        # the GPU); pictures the pipeline refused and the host decoded
+        self.device = device_stages_on(device)
+        self.device_fallbacks = 0
         self.dpb: Optional[Dpb] = None
         self.geom: Optional[PictureGeometry] = None
         self._geom_key = None
@@ -247,8 +253,12 @@ class Decoder:
         # per-slice ref lists: rebuild for reconstruction (predict_pu pulls
         # from these); for multi-slice this would need per-CU slice lookup —
         # handled by reconstructing with each slice's lists
-        recon = self.reconstructor_cls(plan, self.geom, self._ref_lists_for(plan))
-        return recon.run()
+        recon = self.reconstructor_cls(plan, self.geom,
+                                       self._ref_lists_for(plan),
+                                       device=self.device)
+        planes = recon.run()
+        self.device_fallbacks += recon.device_fallback
+        return planes
 
     def _ref_lists_for(self, plan):
         # Single set of lists per picture: re-derive from the first slice
@@ -259,9 +269,11 @@ class Decoder:
 
 
 def decode_to_yuv(data: bytes, max_frames: Optional[int] = None,
-                  out_path: Optional[str] = None, bit_depth: int = 8):
-    """Decode a stream; returns (md5_hex, frame_count). Writes YUV if path."""
-    dec = Decoder()
+                  out_path: Optional[str] = None, bit_depth: int = 8,
+                  device: Optional[bool] = None):
+    """Decode a stream; returns (md5_hex, frame_count). Writes YUV if path.
+    `device` is the Decoder's device-pipeline choice."""
+    dec = Decoder(device=device)
     md5 = hashlib.md5()
     n = 0
     fh = open(out_path, "wb") if out_path else None

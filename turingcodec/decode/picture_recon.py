@@ -46,8 +46,12 @@ def _pu_geometry(cu, part_mode):
 
 
 class PictureReconstructor:
-    def __init__(self, plan: PicturePlan, geom, ref_lists):
+    def __init__(self, plan: PicturePlan, geom, ref_lists, device=False):
         self.plan = plan
+        # chained device pipeline (decode/device_pipeline.py) on/off; set
+        # when that pipeline refused the picture and the host ran it
+        self.device = device
+        self.device_fallback = False
         self.geom = geom
         self.ref_lists = ref_lists
         sps = plan.sps
@@ -75,6 +79,7 @@ class PictureReconstructor:
                           for sh in plan.slice_headers]
         if any(w is not None for w in self.wp_tables):
             # weighted prediction: scalar per-PU path (spec 8.5.3.3.4.3)
+            self.device_fallback = self.device
             for cu in plan.cu_list:
                 if cu.pcm:
                     self._recon_pcm(cu)
@@ -88,7 +93,7 @@ class PictureReconstructor:
             from turingcodec import native
             from turingcodec.decode.recon_vec import reconstruct_inter_batch
             done = False
-            if os.environ.get("TURING_DEVICE_PIPELINE"):
+            if self.device:
                 # chained device pipeline: MC -> residual -> (host intra)
                 # -> deblock -> SAO, one device->host pull per picture
                 from turingcodec.decode.device_pipeline import (
@@ -96,6 +101,7 @@ class PictureReconstructor:
                 out = decode_picture_device(self)
                 if out is not None:
                     return out
+                self.device_fallback = True
             if os.environ.get("TURING_DEVICE_RECON"):
                 from turingcodec.decode.device_recon import (
                     reconstruct_inter_device)

@@ -1,7 +1,7 @@
 """Decision tensors ("picture plan"): the fully-parsed, pixel-independent
 representation of one coded picture.
 
-This is the TPU-native analogue of the reference's CodedData decision stream
+This is the batched analogue of the reference's CodedData decision stream
 (turing/CodedData.h:37 "Encoder decisions serialised to a sequence of
 uint16_t") — but as dense numpy tensors at 4x4 min-block granularity, so the
 reconstruction stage can consume them as batched device arrays instead of a

@@ -1,6 +1,6 @@
 """Picture reconstruction from a PicturePlan (numpy reference implementation).
 
-This is the bit-exactness oracle for the Pallas/JAX kernels in
+This is the bit-exactness oracle for the JAX kernels in
 turingcodec.ops — every op here has a device twin that must match it
 exactly (integer arithmetic throughout). Parity reference: havoc/ kernels
 (transform.cpp, pred_intra.cpp, pred_inter.cpp, quantize.cpp) and

@@ -31,6 +31,7 @@ from turingcodec.hevc.params import (
 from turingcodec.encode.ctu_write import write_slice_data
 from turingcodec.encode.intra_search import IntraPictureEncoder
 from turingcodec.decode.picture_recon import PictureReconstructor
+from turingcodec.utils.device import device_stages_on
 
 
 @dataclass
@@ -131,6 +132,11 @@ class EncoderConfig:
                                  # differ from the sequential walk (the
                                  # clamp). Env TURING_FRAME_OVERLAP
                                  # overrides (1/0).
+    device: Optional[bool] = None  # run the batched analysis stages
+                                   # (encode/device_analysis.py) on the
+                                   # JAX device: None = on when the backend
+                                   # is the GPU. Bitstreams are identical
+                                   # either way.
 
 
 class _OverlapFollower:
@@ -269,6 +275,7 @@ class Encoder:
         assert cfg.width % 8 == 0 and cfg.height % 8 == 0, \
             "conformance cropping not implemented: use multiple-of-8 sizes"
         self.cfg = cfg
+        self.device = device_stages_on(cfg.device)
         self.sps = self._setup_sps()
         self.pps = self._setup_pps()
         self.vps = self._setup_vps()
@@ -1076,7 +1083,7 @@ class Encoder:
         # instead of sweeping (byte-identical — exact twins)
         from turingcodec.encode.device_analysis import (
             device_enc_enabled, rank_satd_tables_device)
-        if (device_enc_enabled()
+        if (device_enc_enabled(self.device)
                 and not os.environ.get("TC_NO_SRC_RANK")
                 and (self.cfg.rd_candidates <= 2
                      or os.environ.get("TC_SRC_RANK"))
@@ -1089,6 +1096,7 @@ class Encoder:
         # pre-analysis (device fields + noise streak) is cross-picture
         # sequential state: run it here, not in the parallel encode phase
         enc._overlap = ovl
+        enc.device = self.device
         if not sh.is_i:
             # TC_SRC_SEEDS: analyse against reference SOURCES (stashed Y
             # planes) instead of reconstructions — removes the analysis'

@@ -78,6 +78,9 @@ class InterPictureEncoder(IntraPictureEncoder):
     # caminandes 12-134, 3x-upscaled 1080p 62, white-noise synthetic 1506.
     NOISE_SAD_MEDIAN = 768
 
+    # run the analysis stages on the JAX device (set by the Encoder facade)
+    device = False
+
     def encode_picture(self, orig, slice_number=0):
         self.deriver = None  # created lazily (needs plan)
         if not getattr(self, "_noise_done", False):
@@ -87,15 +90,16 @@ class InterPictureEncoder(IntraPictureEncoder):
     def prepare_analysis(self, orig):
         """Per-picture pre-analysis, callable ahead of encode_picture so
         the frame-parallel facade can run it in the sequential prepare
-        phase: TURING_DEVICE_ENC=1 runs the lowres pre-ME + dense ME
-        fields on the TPU in one jit call (bit-identical values feed the
-        host RDO), and the noise-adaptive RDOQ decision consumes the
-        dense SAD field."""
+        phase: with `device` set (the facade's EncoderConfig.device) the
+        lowres pre-ME + dense ME fields run on the JAX device in one jit
+        call (bit-identical values feed the host RDO), and the
+        noise-adaptive RDOQ decision consumes the dense SAD field."""
         from turingcodec.encode.device_analysis import (
             device_enc_enabled, install_seed_fields, install_subpel_fields)
         self._device_seeds = None
         self._device_subpel = None
-        if device_enc_enabled() and not getattr(self, "_overlap", False):
+        if (device_enc_enabled(self.device)
+                and not getattr(self, "_overlap", False)):
             # overlap: reference reconstructions are in flight — the
             # source-referenced fields from _noise_adapt stand in
             self._device_seeds = install_seed_fields(self, orig)
@@ -512,7 +516,7 @@ class InterPictureEncoder(IntraPictureEncoder):
         full-pel SAD winner around the lowres seed, over edge-replicated
         padded planes. cost = (SAD << 2) + |ox| + |oy|, scan-order (oy, ox
         ascending) strict-improvement tie-break — the Python oracle of
-        enc_core.cpp dense_prepass (and of the XLA/Pallas device twins in
+        enc_core.cpp dense_prepass (and of the XLA device twin in
         device_analysis). This whole-picture batched sweep replaces the
         star search's wide scanning; it is the encoder's ME hot loop
         (ref:turing/Search.hpp:1464-1483's role) recast as one dense

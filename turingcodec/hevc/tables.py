@@ -4,7 +4,7 @@ All values are ITU-T H.265 specification constants. Parity reference:
 turing/ScanOrder.cpp (coefficient scans), turing/ScalingMatrices.h (default
 scaling lists), turing/Global.h / Dsp.h (chroma QP table, filters).
 
-Represented as dense numpy arrays so they can be fed straight into JAX/Pallas
+Represented as dense numpy arrays so they can be fed straight into JAX
 kernels as gather tables.
 """
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Native (C++) CABAC decode core loader.
 
-Compiles cabac_core.cpp on first use (g++ -O2 -shared) into a cached .so and
+Compiles the C++ sources on first use (g++ -O3 -march=native -shared) into a
+.so cached beside them under a key of sources, flags and host CPU, and
 exposes `residual_decode(dec, log2_size, c_idx, scan_idx, sdh)` which runs
 the residual_coding hot loop natively, advancing the Python CabacDecoder's
 state exactly as the pure-Python path would (parity: tests/test_native.py).
@@ -10,6 +11,7 @@ Set TURING_NO_NATIVE=1 to force the pure-Python path.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
@@ -66,25 +68,62 @@ def bind_thread_ctx() -> None:
     lib.tc_ctx_bind(t.ctx)
 
 
-def _build_and_load():
-    here = os.path.dirname(__file__)
-    srcs = [os.path.join(here, f)
-            for f in ("cabac_core.cpp", "slice_parse.cpp",
-                      "pixel_recon.cpp", "enc_core.cpp", "write_core.cpp")]
-    newest = max(os.path.getmtime(s) for s in
-                 srcs + [os.path.join(here, "core.h")])
-    prof = bool(os.environ.get("TURING_NATIVE_PROF"))
-    so = os.path.join(here, f"_cabac_core_{sys.implementation.cache_tag}"
-                            f"{'_prof' if prof else ''}.so")
-    if not os.path.exists(so) or os.path.getmtime(so) < newest:
-        # compiled at runtime on the host machine (the analogue of the
-        # reference's xbyak JIT), so -march=native is safe
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-o", so + ".tmp"] + srcs
-        if os.environ.get("TURING_NATIVE_PROF"):
-            cmd.insert(1, "-DTC_ENC_PROF")
+_SOURCES = ("cabac_core.cpp", "slice_parse.cpp", "pixel_recon.cpp",
+            "enc_core.cpp", "write_core.cpp")
+_HEADERS = ("core.h",)
+
+# seconds the last build took in this process (0.0: a cached .so loaded)
+# and the library's path, for set-up reports
+build_seconds = 0.0
+so_path = None
+
+
+def _flags():
+    """g++ flags. The core is compiled on the host that runs it (the
+    analogue of the reference's xbyak JIT), so -march=native is safe as
+    long as the .so is never loaded on another CPU: see _so_path."""
+    flags = ["-O3", "-march=native", "-shared", "-fPIC"]
+    if os.environ.get("TURING_NATIVE_PROF"):
+        flags.insert(1, "-DTC_ENC_PROF")
+    return flags
+
+
+def _cpu_identity() -> bytes:
+    """The compiler's version and what -march=native resolves to on this
+    host (the target options it enables)."""
+    out = [subprocess.run(cmd, check=True, capture_output=True).stdout
+           for cmd in (["g++", "--version"],
+                       ["g++", "-march=native", "-Q", "--help=target"])]
+    return b"\0".join(out)
+
+
+def _so_path(here, flags, cpu: bytes) -> str:
+    """Cache path of the built core, keyed on the source and header bytes,
+    the flags and the host CPU: a .so built from other sources, with other
+    flags or on another CPU is never picked up."""
+    h = hashlib.sha256()
+    for name in _SOURCES + _HEADERS:
+        with open(os.path.join(here, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read() + b"\0")
+    h.update(" ".join(flags).encode() + b"\0" + cpu)
+    return os.path.join(here, f"_cabac_core_{sys.implementation.cache_tag}"
+                              f"_{h.hexdigest()[:16]}.so")
+
+
+def _build_and_load(here=os.path.dirname(__file__)):
+    global build_seconds, so_path
+    import time
+    flags = _flags()
+    so = _so_path(here, flags, _cpu_identity())
+    if not os.path.exists(so):
+        t0 = time.perf_counter()
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = (["g++"] + flags + ["-o", tmp]
+               + [os.path.join(here, f) for f in _SOURCES])
         subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(so + ".tmp", so)
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    so_path = so
     lib = ctypes.CDLL(so)
     lib.tc_init_tables.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_void_p, ctypes.c_void_p]

@@ -2,7 +2,7 @@
 //
 // The serial-host half of the codec (the turing/Read.h:462-676 engine and the
 // Read<residual_coding> hot loop at Read.h:1124) implemented in C++ — the
-// TPU-native analogue of the reference's native entropy path.  The Python
+// host-side analogue of the reference's native entropy path.  The Python
 // engine (cabac/engine.py) hands its exact state (bit position, ivlCurrRange,
 // ivlOffset, context pool) across this boundary per residual block and
 // resumes afterwards; bit-exactness vs the Python oracle is asserted by the

@@ -121,7 +121,7 @@ struct EN {
     // seed. Replaces the star search's wide scanning (raster fallback,
     // big windows) with one whole-picture batched sweep — the same
     // restructuring that puts the ME hot loop (Search.hpp:1464-1483's
-    // job) on the TPU when TURING_DEVICE_ENC=1.
+    // job) on the device when the encoder's device stages are on.
     std::vector<int16_t> dense_mv[2];  // (hb*wb, 2) full-pel winners
     int have_dense[2] = {0, 0};
     int dense_external = 0;
@@ -130,7 +130,7 @@ struct EN {
     // aligned 16x16-multiple probes from these instead of recomputing
     // (identical integers: the padded-plane reads equal the clamped
     // per-probe reads), which is what makes the ME candidate search a
-    // device-served stage when the fields come from the TPU.
+    // device-served stage when the fields come from the device.
     std::vector<int32_t> dense_surf[2];
     int have_surf[2] = {0, 0};
     // ---- subpel plane cache (whole-plane 14-bit interpolation) ----
@@ -2473,7 +2473,7 @@ int rank_modes(const int32_t* orig_b, const int32_t* rt, const int32_t* rl,
     // device-installed source-referenced SATD table: when the caller
     // ranks from SOURCE refs at an aligned position and the device stage
     // installed this size's table, the sweep's exact integers are read
-    // instead of recomputed (TURING_DEVICE_ENC rank stage)
+    // instead of recomputed (the device analysis' rank stage)
     const int32_t* tab = nullptr;
     if (from_src && x0 >= 0 && en.have_ranksatd) {
         const int lg = n == 4 ? 2 : (n == 8 ? 3 : (n == 16 ? 4 : 5));
@@ -4184,7 +4184,7 @@ void full_pel_search(const int32_t* orig, int x0, int y0, int w, int h,
     // integers (the sweep's padded-plane reads equal the per-probe
     // clamped reads, and SAD is child-separable), so bitstreams are
     // unchanged — the ME candidate search is served by the batched
-    // whole-picture stage (the device stage under TURING_DEVICE_ENC)
+    // whole-picture stage (the encoder's device analysis stage)
     // instead of per-probe host arithmetic.
     bool surf_ok = false;
     int sbx0 = 0, sby0 = 0, snbx = 0, snby = 0;

@@ -1,12 +1,12 @@
-"""Device (TPU/XLA) deblocking filter twin of decode/deblock_vec.py.
+"""Device (XLA) deblocking filter twin of decode/deblock_vec.py.
 
-TPU-first formulation: no gather/scatter with data-dependent indices —
+Dense formulation: no gather/scatter with data-dependent indices —
 every 4-line edge segment in the picture is processed as one lane of a
 dense (segments, edges) batch, with inactive segments masked to
 passthrough. The written windows of neighbouring edges tile the sample
 grid exactly (a vertical edge at x rewrites columns x-4..x+3; edges are 8
 apart), so the whole direction pass is reshape -> filter -> reshape, which
-XLA lowers to pure VPU element-wise work with no scatter at all. The
+XLA lowers to pure element-wise work with no scatter at all. The
 horizontal pass reuses the vertical routine on transposed planes (the
 filter is symmetric under transposition with p=above -> p=left).
 

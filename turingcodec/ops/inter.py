@@ -76,7 +76,7 @@ def mc_block_grid(refs: jax.Array, ref_sel: jax.Array, xi: jax.Array,
 
     This is the decoder's device MC: every 4x4 luma (2x2 chroma) min-block
     carries its PU's motion, so a whole picture is one uniform batch —
-    the TPU-native replacement for per-PU scalar interpolation.
+    the batched replacement for per-PU scalar interpolation.
     """
     shift1 = bit_depth - 8
     shift2 = 6

@@ -2,7 +2,7 @@
 
 Device twins of havoc/sad.cpp, ssd.cpp, hadamard.cpp. The encoder's motion
 search evaluates thousands of candidates at once: shapes are
-(B, N, N) blocks or (B, C, N, N) candidate grids — the TPU-native
+(B, N, N) blocks or (B, C, N, N) candidate grids — the batched
 replacement for havoc's 4-way multiref SAD (havoc/sad.h:104).
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ def ssd_batch(a: jax.Array, b: jax.Array) -> jax.Array:
     """(..., H, W) -> (...,) uint32 sum of squared differences.
 
     int32 squares, uint32 accumulation: exact up to 64x64 10-bit blocks
-    (64*64*1023^2 < 2^32) without int64 (absent on TPU).
+    (64*64*1023^2 < 2^32) without int64 (JAX's default disables it).
     """
     d = a.astype(jnp.int32) - b.astype(jnp.int32)
     sq = (d * d).astype(jnp.uint32)

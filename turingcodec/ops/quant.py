@@ -14,10 +14,8 @@ import numpy as np
 from turingcodec.hevc.tables import LEVEL_SCALE, QUANT_SCALES
 
 def _select6(idx: jax.Array, values) -> jax.Array:
-    """6-way select chain: tiny-table gathers compile pathologically slowly
-    on the TPU backend in this environment (hundreds of seconds for a
-    6-entry lookup); a where-chain compiles instantly and vectorizes on
-    the VPU."""
+    """6-way select chain standing in for a 6-entry table gather: exact,
+    element-wise, and fused by XLA into its consumers."""
     out = jnp.full_like(idx, int(values[5]))
     for k in range(4, -1, -1):
         out = jnp.where(idx == k, int(values[k]), out)
@@ -29,7 +27,7 @@ def dequant_batch(coeffs: jax.Array, qp: jax.Array, bit_depth: int,
                   log2_size: int) -> jax.Array:
     """(B, N, N) levels + (B,) qp -> (B, N, N) int32 dequantized (flat list).
 
-    int32-exact restructuring (TPU has no native int64): fold qp//6 into the
+    int32-exact restructuring (JAX runs without int64 by default): fold qp//6 into the
     shift instead of the scale — algebraically identical to the oracle's
     int64 form because the rounding constant scales with the shift.
     """
@@ -65,6 +63,15 @@ def quant_batch(coeffs: jax.Array, qp: jax.Array, bit_depth: int,
              + rounding_num[:, None, None]) >> q_shift[:, None, None]
     level = jnp.clip(level, 0, 32767)
     return jnp.where(coeffs < 0, -level, level).astype(jnp.int32)
+
+
+def quant_np(coeffs, qp, bit_depth, log2_size, rounding_num):
+    """numpy oracle of quant_batch for one scalar qp and rounding."""
+    q_shift = 14 + qp // 6 + 15 - bit_depth - log2_size
+    a = np.abs(coeffs.astype(np.int64))
+    level = np.minimum((a * int(QUANT_SCALES[qp % 6]) + rounding_num)
+                       >> q_shift, 32767)
+    return np.where(coeffs < 0, -level, level).astype(np.int32)
 
 
 def dequant_np(coeffs, qp, bit_depth, log2_size):

@@ -1,12 +1,12 @@
-"""Device (TPU/XLA) SAO filter twin of decode/sao.py.
+"""Device (XLA) SAO filter twin of decode/sao.py.
 
-TPU-first formulation: instead of the numpy reference's per-CTB loop, the
+Dense formulation: instead of the numpy reference's per-CTB loop, the
 whole plane is filtered in one dense pass — per-CTB parameter maps
 (type/class/offsets) are upsampled to pixel resolution with jnp.repeat,
 the four edge-class variants are computed with whole-plane rolls and
 selected per pixel, and every mask (picture border, slice/tile neighbour
 rules, PCM/transquant-bypass skips, per-slice enables) is elementwise.
-All work is VPU-shaped; there is no gather with data-dependent indices.
+All work is element-wise; there is no gather with data-dependent indices.
 
 Bit-exact with decode/sao.py (tests/test_device_sao.py); reference:
 turing/sao.h:29-34, sao.cpp.

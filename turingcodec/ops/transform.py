@@ -2,8 +2,10 @@
 decode/reconstruct.py — must match bit-exactly; integer arithmetic).
 
 Design: the hot shape is (B, N, N) — thousands of TUs of one size batched
-into a single einsum pair that XLA maps onto the MXU. All arithmetic is
-int32 (products bounded by 32767*90*32 < 2^27, sums exact in int32).
+into a single einsum pair. All arithmetic is int32 (products bounded by
+32767*90*32 < 2^27, sums exact in int32); XLA generates these s32 dots
+itself (cuBLAS has no s32 x s32 GEMM), and they are exact on any
+backend.
 
 Parity reference: havoc/transform.cpp (all sizes, fwd+inv), spec 8.6.4.
 """

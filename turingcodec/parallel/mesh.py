@@ -1,7 +1,7 @@
 """Device-mesh sharding for the codec's batched pixel pipeline.
 
 The reference scales via WPP threads + concurrent frames (SURVEY.md §2.7);
-the TPU-native design shards (frames, CTU-rows) over a 2D mesh:
+this design shards (frames, CTU-rows) over a 2D device mesh:
 
 - axis "frame": data/pipeline parallelism across pictures of a GOP
   (the `--concurrent-frames` analogue, TaskEncodeInput.cpp throttle)
@@ -9,8 +9,8 @@ the TPU-native design shards (frames, CTU-rows) over a 2D mesh:
   (the TaskEncodeSubstream analogue) — rows become a sharded batch
   dimension of diagonal-wave CTU tensors
 
-Cross-device reductions (rate totals, distortion sums) ride ICI collectives
-via jnp.sum over sharded axes under jit; halo exchange for inter prediction
+Cross-device reductions (rate totals, distortion sums) are collectives
+that XLA inserts for jnp.sum over sharded axes under jit; halo exchange for inter prediction
 uses jax.lax collectives in later rounds.
 """
 from __future__ import annotations

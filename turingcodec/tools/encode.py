@@ -71,11 +71,19 @@ def main(argv=None):
     ap.add_argument("--hrd-sei", action="store_true",
                     help="emit buffering_period + pic_timing CPB/DPB "
                          "delay SEIs (needs --bitrate)")
+    ap.add_argument("--device", dest="device", action="store_true",
+                    default=None,
+                    help="run the analysis stages on the JAX device "
+                         "(default: when the backend is the GPU)")
+    ap.add_argument("--no-device", dest="device", action="store_false")
     args = ap.parse_args(argv)
 
     import numpy as np
 
     from turingcodec.encode.encoder import Encoder, EncoderConfig
+    from turingcodec.utils.device import describe_choice, enable_compile_cache
+
+    enable_compile_cache()
 
     w, h = (int(x) for x in args.input_res.split("x"))
     presets = {  # rd_candidates, search_range (Speed.h:31-211 analogue;
@@ -108,8 +116,9 @@ def main(argv=None):
                             int(x) for x in args.wp_chroma.split(":"))
                         if args.wp_chroma else None,
                         sei_hrd_timing=args.hrd_sei, rqt=args.rqt,
-                        esd=args.esd)
+                        esd=args.esd, device=args.device)
     enc = Encoder(cfg)
+    print(describe_choice(enc.device), file=sys.stderr)
     data = open(args.input, "rb").read()
     fsz = w * h * 3 // 2
     total = len(data) // fsz

@@ -18,9 +18,8 @@ What it does (SURVEY.md §2.7 mapping; ROADMAP multi-host story):
 On a CPU host, set XLA_FLAGS=--xla_force_host_platform_device_count=8
 JAX_PLATFORMS=cpu for a virtual 8-device mesh (correctness/placement
 validation; CPU "devices" share the same cores, so wall time is not a
-scaling claim). On real multi-chip hardware the same script measures
-actual scaling; on one TPU chip use --mesh 1x1 for single-chip op
-throughput.
+scaling claim). On several GPUs the same script measures actual
+scaling; on one GPU use --mesh 1x1 for single-device op throughput.
 """
 from __future__ import annotations
 
