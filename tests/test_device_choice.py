@@ -47,3 +47,30 @@ def test_compile_cache_default_is_fixed_in_repo(monkeypatch):
         jax.config.update("jax_compilation_cache_dir", before)
     with open(REPO_ROOT / ".gitignore") as fh:
         assert ".jax_cache/" in fh.read().split()
+
+
+@pytest.mark.parametrize("env,unknown", [
+    ({"TURING_NO_NATIVE": "1", "TURING_FRAME_THREADS": "2"}, []),
+    ({"TURING_NO_NATIVE": "1", "TURING_NO_NATIVEE": "1", "PATH": "/"},
+     ["TURING_NO_NATIVEE"]),
+])
+def test_unknown_switches_are_reported(env, unknown):
+    import warnings
+    import turingcodec
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert turingcodec.warn_unknown_switches(env) == unknown
+    assert len(caught) == len(unknown[:1])
+    if unknown:
+        assert unknown[0] in str(caught[0].message)
+
+
+def test_every_switch_read_is_known():
+    import re
+    import turingcodec
+    read = set()
+    for path in list((REPO_ROOT / "turingcodec").rglob("*.py")) + [
+            REPO_ROOT / "bench.py", REPO_ROOT / "__graft_entry__.py"]:
+        read |= set(re.findall(r"[\"'](TURING_[A-Z_]+)[\"']",
+                               path.read_text()))
+    assert read and read <= turingcodec.SWITCHES

@@ -80,3 +80,23 @@ def test_device_pipeline_matches_host(stream):
     ref = _decode_md5(data)
     dev = _decode_md5(data, device=True)
     assert dev == ref
+
+
+@pytest.mark.parametrize("stream,host", [
+    ("vfy_sweep.hevc", {}),
+    ("vfy_wp.hevc", {"weighted prediction": 3}),
+])
+def test_device_pipeline_counts_host_pictures_by_reason(stream, host):
+    """The pipeline has no weighted prediction: those pictures go to the
+    host and are counted under that reason; other pictures stay on it."""
+    from turingcodec.decode.decoder import Decoder
+    path = os.path.join(os.path.dirname(__file__), "streams", stream)
+    dec = Decoder(device=True)
+    for _ in dec.decode_stream(open(path, "rb").read()):
+        pass
+    assert dec.hash_failures == 0
+    assert dict(dec.device_fallbacks) == host
+    off = Decoder(device=False)
+    for _ in off.decode_stream(open(path, "rb").read()):
+        pass
+    assert dict(off.device_fallbacks) == {}

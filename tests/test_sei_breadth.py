@@ -114,3 +114,23 @@ def test_structured_never_raises_on_truncation():
             m = sei.SeiMessage(t, payload)
             r = sei.parse_structured(m)  # must not raise
             assert r is None or isinstance(r, dict)
+
+
+def test_default_user_data_matches_the_corpus():
+    """The encoder's user-data SEI (uuid + name) is the one the streams in
+    tests/streams carry, so default encodes keep their bytes."""
+    import hashlib
+    import os
+    from turingcodec.encode.encoder import (SEI_IDENTITY, Encoder,
+                                            EncoderConfig)
+    payload = (hashlib.md5(SEI_IDENTITY.encode()).digest()
+               + SEI_IDENTITY.encode())
+    enc = Encoder(EncoderConfig(width=64, height=64))
+    frame = [np.full((64, 64), 128, np.int16),
+             np.full((32, 32), 128, np.int16),
+             np.full((32, 32), 128, np.int16)]
+    nal, _recon = enc.encode_frame(frame)
+    assert payload in enc.headers() + nal
+    path = os.path.join(os.path.dirname(__file__), "streams", "vfy_hp.hevc")
+    with open(path, "rb") as fh:
+        assert payload in fh.read()

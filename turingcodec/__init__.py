@@ -26,3 +26,29 @@ for _v in ("OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS",
     _os.environ.setdefault(_v, "1")
 
 __version__ = "0.1.0"
+
+# The environment switches the package reads. Any other TURING_* variable
+# is a misspelt or retired name that would otherwise be ignored unseen.
+SWITCHES = frozenset({
+    "TURING_DEVICE_DEBLOCK", "TURING_DEVICE_RECON", "TURING_DEVICE_SAO",
+    "TURING_ENC_THREADS", "TURING_FRAME_OVERLAP", "TURING_FRAME_THREADS",
+    "TURING_NATIVE_PROF", "TURING_NO_NATIVE", "TURING_NO_NATIVE_ENC",
+    "TURING_NO_NATIVE_PARSE", "TURING_NO_NATIVE_RECON",
+    "TURING_NO_NATIVE_WRITE", "TURING_PIPELINE_TRACE",
+})
+
+
+def warn_unknown_switches(environ=_os.environ):
+    """Warn about TURING_* variables the package does not read; returns
+    their names."""
+    unknown = sorted(k for k in environ
+                     if k.startswith("TURING_") and k not in SWITCHES)
+    if unknown:
+        import warnings
+        warnings.warn(f"turingcodec ignores {', '.join(unknown)}; its "
+                      f"switches are {', '.join(sorted(SWITCHES))}",
+                      stacklevel=2)
+    return unknown
+
+
+warn_unknown_switches()

@@ -7,6 +7,7 @@ turing/StateDecode.h (output + md5), turing/Read.hpp:69-131 (NAL dispatch).
 from __future__ import annotations
 
 import hashlib
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -65,9 +66,9 @@ class Decoder:
                  device: Optional[bool] = None):
         self.ps = ParamSets()
         # chained device pipeline on/off (None: on when JAX's backend is
-        # the GPU); pictures the pipeline refused and the host decoded
+        # the GPU); {reason: pictures} the host decoded instead
         self.device = device_stages_on(device)
-        self.device_fallbacks = 0
+        self.device_fallbacks: Counter = Counter()
         self.dpb: Optional[Dpb] = None
         self.geom: Optional[PictureGeometry] = None
         self._geom_key = None
@@ -257,7 +258,8 @@ class Decoder:
                                        self._ref_lists_for(plan),
                                        device=self.device)
         planes = recon.run()
-        self.device_fallbacks += recon.device_fallback
+        if recon.device_fallback:
+            self.device_fallbacks[recon.device_fallback] += 1
         return planes
 
     def _ref_lists_for(self, plan):

@@ -7,7 +7,7 @@ preCtu/postCtu loop-filter sequencing.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -48,10 +48,10 @@ def _pu_geometry(cu, part_mode):
 class PictureReconstructor:
     def __init__(self, plan: PicturePlan, geom, ref_lists, device=False):
         self.plan = plan
-        # chained device pipeline (decode/device_pipeline.py) on/off; set
-        # when that pipeline refused the picture and the host ran it
+        # chained device pipeline (decode/device_pipeline.py) on/off; when
+        # the host ran a picture the pipeline would have taken, the reason
         self.device = device
-        self.device_fallback = False
+        self.device_fallback: Optional[str] = None
         self.geom = geom
         self.ref_lists = ref_lists
         sps = plan.sps
@@ -79,7 +79,8 @@ class PictureReconstructor:
                           for sh in plan.slice_headers]
         if any(w is not None for w in self.wp_tables):
             # weighted prediction: scalar per-PU path (spec 8.5.3.3.4.3)
-            self.device_fallback = self.device
+            if self.device:
+                self.device_fallback = "weighted prediction"
             for cu in plan.cu_list:
                 if cu.pcm:
                     self._recon_pcm(cu)
@@ -101,7 +102,7 @@ class PictureReconstructor:
                 out = decode_picture_device(self)
                 if out is not None:
                     return out
-                self.device_fallback = True
+                self.device_fallback = "stream shape"
             if os.environ.get("TURING_DEVICE_RECON"):
                 from turingcodec.decode.device_recon import (
                     reconstruct_inter_device)

@@ -33,6 +33,12 @@ from turingcodec.encode.intra_search import IntraPictureEncoder
 from turingcodec.decode.picture_recon import PictureReconstructor
 from turingcodec.utils.device import device_stages_on
 
+# The encoder's name in its user-data SEI (and the seed of that SEI's
+# uuid). Every stream carries it, and the pinned signatures
+# (tools/signature.py) hash whole streams, so it stays as the streams in
+# tests/streams have it, whatever the package is called.
+SEI_IDENTITY = "turingcodec-tpu"
+
 
 @dataclass
 class EncoderConfig:
@@ -111,7 +117,7 @@ class EncoderConfig:
                                 # (encode.cpp:379-453 field split)
     # prefix SEI set (TaskEncodeOutput.cpp:105-209 analogue)
     sei_active_parameter_sets: bool = True   # on IRAP pictures
-    sei_user_data: Optional[str] = "turingcodec"  # once, at stream start
+    sei_user_data: Optional[str] = SEI_IDENTITY  # once, at stream start
     sei_pic_timing: bool = False   # per picture; enables VUI frame-field info
     mastering_display: Optional[tuple] = None  # (primaries 3x(x,y), (wx,wy),
                                                #  max_lum, min_lum) on IRAP
@@ -540,7 +546,7 @@ class Encoder:
                 msgs.append(S.make_active_parameter_sets(0, 0))
             if c.sei_user_data is not None and not self._user_data_sent:
                 self._user_data_sent = True
-                uuid = hashlib.md5(b"turingcodec").digest()
+                uuid = hashlib.md5(SEI_IDENTITY.encode()).digest()
                 msgs.append(S.make_user_data_unregistered(
                     uuid, c.sei_user_data.encode()))
             if c.mastering_display is not None:
